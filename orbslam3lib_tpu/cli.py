@@ -1,10 +1,9 @@
 """Console entry points (pyproject [project.scripts]).
 
-The benchmark and profiling drivers live at the repo root (bench.py,
-tools/profile_tpu.py) because they are measurement harnesses, not library
-code; these wrappers locate them relative to the installed package so
-`pip install -e .` exposes them as `orbslam3-tpu-bench` /
-`orbslam3-tpu-profile` (the L7 build-shell analog of the reference's Gradle
+The benchmark script lives at the repo root (bench.py) because it is a
+measurement harness, not library code; this wrapper locates it relative to
+the installed package so `pip install -e .` exposes it as
+`orbslam3-tpu-bench` (the L7 build-shell analog of the reference's Gradle
 targets, app/build.gradle)."""
 import os
 import runpy
@@ -24,7 +23,3 @@ def _run(rel_path: str, name: str):
 
 def bench_main():
     _run("bench.py", "orbslam3-tpu-bench")
-
-
-def profile_main():
-    _run("tools/profile_tpu.py", "orbslam3-tpu-profile")

@@ -1,24 +1,24 @@
 """Bundle adjustment: batched Levenberg-Marquardt with dense Schur complement.
 
-TPU-native replacement for the reference's g2o BA family
+Replacement for the reference's g2o BA family
 (/root/reference app/src/main/cpp/src/Optimizer.cc: LocalBundleAdjustment:1124
 — covisible-window KFs optimizable, their other observers fixed, mono+stereo
 edges with Huber; BundleAdjustment/GlobalBundleAdjustemnt:53,61; the Schur
 trick g2o applies via BlockSolver_6_3 and the hand-rolled Marginalize at
 Optimizer.cc:2986).
 
-Design (SURVEY.md §7 "Sparse BA structure on TPU"):
+Design (SURVEY.md §7 "Sparse BA structure"):
   * the edge list is a fixed-capacity masked SoA: (cam_idx, pt_idx, uv,
     inv_sigma2, is_stereo, u_right, valid);
   * per-iteration, residuals + Jacobians for all edges are computed in one
-    batched pass (VPU), then scattered with segment_sum into
+    batched elementwise pass, then scattered with segment_sum into
       - camera diagonal blocks   H_cc  (C, 6, 6)
       - landmark diagonal blocks H_pp  (P, 3, 3)
       - coupling blocks          W     (P, C, 6, 3)   [dense over (P, C)]
     and the reduced camera system S = H_cc - sum_p W_p Hpp_p^-1 W_p^T is one
-    einsum (MXU) followed by a tiny dense Cholesky solve; back-substitution
+    einsum followed by a tiny dense Cholesky solve; back-substitution
     for landmarks is batched 3x3 solves.
-  * The dense (P, C) coupling layout is the key TPU choice: C (cameras in
+  * The dense (P, C) coupling layout is the key choice: C (cameras in
     the window) is small (<=32, reference window 10-25 KFs,
     Optimizer.cc:2409), so dense beats sparse bookkeeping and makes the
     Schur reduction a pure matmul — and it shards cleanly over P for the
@@ -175,12 +175,28 @@ def _schur_solve(Hcc, Hpp, W, b_c, b_p, free_cam, free_pt, lm_lambda):
     return dx_c, dx_p
 
 
+# iterations before the first chi2 outlier pruning (Optimizer.cc:1350+)
+CHI2_GATE_AFTER = 5
+
+
+@partial(jax.jit, static_argnames=("cam_model", "bf"))
+def gate_outliers(prob: BAProblem, cam_params, cam_model: int, bf: float):
+    """Drop the edges that fail the chi2 gate at the problem's current
+    estimate. A schedule run as several bundle_adjust calls (the chunked
+    global BA) prunes with this once CHI2_GATE_AFTER iterations are done:
+    each call starts with every edge an inlier again, so without it a
+    1-iteration chunking never prunes an outlier."""
+    chi2_th = jnp.where(prob.e_stereo, CHI2_STEREO, CHI2_MONO)
+    _, _, _, chi2, behind = _edge_terms(prob, cam_model, cam_params, bf)
+    return prob._replace(e_valid=prob.e_valid & (chi2 <= chi2_th) & ~behind)
+
+
 @partial(jax.jit, static_argnames=("cam_model", "bf", "n_iters",
                                    "lm_lambda", "chi2_gate_after"))
 def bundle_adjust(prob: BAProblem, cam_params,
                   cam_model: int = cameras.PINHOLE, bf: float = 0.0,
                   n_iters: int = 10, lm_lambda: float = 1e-4,
-                  chi2_gate_after: int = 5):
+                  chi2_gate_after: int = CHI2_GATE_AFTER):
     """Run LM BA. Returns (cam_R, cam_t, points, edge_inlier_mask).
 
     Mirrors LocalBundleAdjustment's two-phase schedule (Optimizer.cc:1350+:

@@ -1,7 +1,7 @@
 """Map-level bundle adjustment: window gather/scatter + interruptible
 global BA.
 
-TPU-native equivalent of the reference's map-wide optimizations
+Equivalent of the reference's map-wide optimizations
 (/root/reference app/src/main/cpp/src/Optimizer.cc:
 GlobalBundleAdjustemnt:53 / BundleAdjustment:61, spawned from
 LoopClosing::RunGlobalBundleAdjustment:2268 with the mbStopGBA abort flag
@@ -22,7 +22,8 @@ import jax.numpy as jnp
 from ..models import map_state as ms
 from ..ops.pyramid import scale_factors
 from ..utils import cameras
-from .local_ba import BAProblem, bundle_adjust
+from .local_ba import (CHI2_GATE_AFTER, BAProblem, bundle_adjust,
+                       gate_outliers)
 
 
 def inv_sigma2(level, n_levels: int = 8):
@@ -91,18 +92,24 @@ def _scatter_window_result(m: ms.MapState, cam_R, cam_t, points,
     )
 
 
-@partial(jax.jit, static_argnames=("bf", "cam_model", "n_ba_points", "n_iters"))
+@partial(jax.jit, static_argnames=("bf", "cam_model", "n_ba_points", "n_iters",
+                                   "gate_first"))
 def map_window_ba(m: ms.MapState, window_ids, fixed_mask, cam_params,
-                  bf: float, cam_model: int, n_ba_points: int, n_iters: int):
+                  bf: float, cam_model: int, n_ba_points: int, n_iters: int,
+                  gate_first: bool = False):
     """Gather a fixed-shape BA problem over a keyframe window, solve, scatter.
 
-    window_ids (C,) int32 (-1 = empty slot), fixed_mask (C,) bool.
+    window_ids (C,) int32 (-1 = empty slot), fixed_mask (C,) bool. With
+    `gate_first`, chi2 outliers at the current estimate are pruned before
+    the first iteration (a chunked schedule past its pruning point).
     Reference: LocalBundleAdjustment (Optimizer.cc:1124) — window KFs
     optimizable, anchors fixed, all their landmarks optimizable. With the
     window = all KFs this is GlobalBundleAdjustemnt (Optimizer.cc:53).
     """
     prob, ids, sel_ids, cam_ok, pt_ok = _gather_window_problem(
         m, window_ids, fixed_mask, bf, n_ba_points)
+    if gate_first:
+        prob = gate_outliers(prob, cam_params, cam_model, bf)
     cam_R, cam_t, points, e_inlier = bundle_adjust(
         prob, cam_params, cam_model=cam_model, bf=bf, n_iters=n_iters)
     return _scatter_window_result(m, cam_R, cam_t, points, ids, sel_ids,
@@ -134,7 +141,8 @@ def global_bundle_adjust(m: ms.MapState, cam_params, bf: float,
     while done < n_iters:
         it = min(chunk, n_iters - done)
         m = map_window_ba(m, window_ids, fixed, cam_params, bf,
-                          cam_model, n_ba_points, it)
+                          cam_model, n_ba_points, it,
+                          gate_first=done >= CHI2_GATE_AFTER)
         done += it
         if should_abort is not None and should_abort():
             break
@@ -148,8 +156,8 @@ def global_bundle_adjust_auto(m: ms.MapState, cam_params, bf: float,
                               should_abort: Optional[Callable[[], bool]] = None
                               ) -> ms.MapState:
     """Global BA on whatever the process has: a multi-device mesh routes to
-    the landmark-sharded distributed solver (psum-Schur over ICI), a single
-    chip to the plain chunked solver."""
+    the landmark-sharded distributed solver (psum-Schur over the mesh), a
+    single device to the plain chunked solver."""
     devs = jax.devices()
     if len(devs) > 1:
         import numpy as np
@@ -171,10 +179,11 @@ def global_bundle_adjust_dist(m: ms.MapState, cam_params, mesh, bf: float,
                               axis: str = "mp") -> ms.MapState:
     """Full-map BA sharded over a device mesh (landmarks + their edges on
     mesh axis `axis`, cameras replicated, Schur camera system psum-reduced
-    over ICI — parallel/dist_ba.py). Same abort contract as the single-device
-    global_bundle_adjust: the LM schedule runs in jitted chunks with the
-    abort callable polled in between; the gathered problem is re-partitioned
-    once, and only camera/point values are swapped between chunks.
+    over the mesh — parallel/dist_ba.py). Same abort contract as the
+    single-device global_bundle_adjust: the LM schedule runs in jitted
+    chunks with the abort callable polled in between; the gathered problem
+    is re-partitioned once, and only camera/point values are swapped
+    between chunks.
     """
     from ..parallel.dist_ba import dist_bundle_adjust, partition_problem
     K = m.max_kf
@@ -188,10 +197,14 @@ def global_bundle_adjust_dist(m: ms.MapState, cam_params, mesh, bf: float,
         m, window_ids, fixed, bf, n_ba_points)
     n_dev = mesh.shape[axis]
     probd = partition_problem(prob, n_dev)
+    e_valid = probd.e_valid
 
     done = 0
     while done < n_iters:
         it = min(chunk, n_iters - done)
+        if done >= CHI2_GATE_AFTER:
+            probd = gate_outliers(probd._replace(e_valid=e_valid),
+                                  cam_params, cam_model, bf)
         cam_R, cam_t, points, _ = dist_bundle_adjust(
             probd, cam_params, mesh, cam_model=cam_model, bf=bf, n_iters=it)
         probd = probd._replace(cam_R=cam_R, cam_t=cam_t, points=points)
@@ -206,7 +219,7 @@ def global_bundle_adjust_dist(m: ms.MapState, cam_params, mesh, bf: float,
 
 @jax.jit
 def merge_gba_result(m_now: ms.MapState, gba_R, gba_t, gba_mp_pos,
-                     n_kf0, n_mp0) -> ms.MapState:
+                     n_kf0, mp_valid0, mp_first_kf0) -> ms.MapState:
     """Fold an asynchronously-computed global-BA result into a map that kept
     advancing while the GBA ran on its own thread.
 
@@ -218,14 +231,19 @@ def merge_gba_result(m_now: ms.MapState, gba_R, gba_t, gba_mp_pos,
     the GBA take mPosGBA, the rest re-anchor through their reference
     keyframe's (before, after) pose pair.
 
-    Here: n_kf0/n_mp0 are the snapshot counts at GBA launch. The spanning
+    Here: n_kf0 is the keyframe count at GBA launch (keyframe ids are
+    appended, never recycled while a GBA runs), and mp_valid0/mp_first_kf0
+    are the landmark slots' validity and first-observing keyframe at launch.
+    Landmark slots ARE recycled, so a slot counts as GBA'd only if it is
+    still held by the same landmark: valid then and now, with the same first
+    keyframe (a landmark born during the GBA has a newer one). The spanning
     tree walk is a fori_loop in keyframe-id order — a parent always has a
     smaller id than its child (map_state.insert_keyframe picks the parent
     among existing keyframes), so each child sees its parent already
     corrected.
     """
     from ..utils import lie
-    K, P = m_now.max_kf, m_now.max_mp
+    K = m_now.max_kf
     ii = jnp.arange(K)
     in_gba = (ii < n_kf0) & m_now.kf_valid
     R_new = jnp.where(in_gba[:, None, None], gba_R, m_now.kf_R)
@@ -248,8 +266,8 @@ def merge_gba_result(m_now: ms.MapState, gba_R, gba_t, gba_mp_pos,
 
     # landmarks: GBA'd ones take the optimized position; the rest re-anchor
     # through their first-observing keyframe's (before, after) pose pair
-    pp = jnp.arange(P)
-    in_gba_mp = (pp < n_mp0) & m_now.mp_valid
+    in_gba_mp = (mp_valid0 & m_now.mp_valid
+                 & (m_now.mp_first_kf == mp_first_kf0))
     ref = jnp.clip(m_now.mp_first_kf, 0, K - 1)
     has_ref = (m_now.mp_first_kf >= 0) & m_now.mp_valid
     p_cam = lie.se3_apply(m_now.kf_R[ref], m_now.kf_t[ref], m_now.mp_pos)

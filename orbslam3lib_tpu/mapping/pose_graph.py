@@ -1,6 +1,6 @@
 """Pose-graph (essential-graph) optimization over Sim(3)/SE(3)/4-DoF.
 
-TPU-native replacement for the reference's essential-graph solves
+Replacement for the reference's essential-graph solves
 (/root/reference app/src/main/cpp/src/Optimizer.cc: OptimizeEssentialGraph
 6/7-DoF :1511/:1799 over VertexSim3Expmap with relative Sim3 edges from the
 spanning tree, covisibility (weight>=100) and loop/merge edges;
@@ -10,8 +10,8 @@ Structure: per-edge residual r_e = log_sim3(S_meas_ij * S_j * S_i^-1) with
 per-edge Jacobian blocks from vmapped jacfwd over only the two incident pose
 deltas (7+7 parameters) — cheap and exact — scattered into a dense
 (K*7, K*7) normal matrix solved by Cholesky. K<=few hundred keyframes makes
-the dense solve a non-issue on TPU (the sparsity bookkeeping g2o needs on
-CPU buys nothing here).
+the dense solve a non-issue on the accelerator (the sparsity bookkeeping
+g2o needs on CPU buys nothing here).
 
 Modes: "sim3" (7-DoF, loop closing with scale drift), "se3" (6-DoF, scale
 fixed), "4dof" (yaw + translation, inertial). Gauge/masking is handled by

@@ -1,7 +1,7 @@
 """Sim(3) estimation between keyframes: closed-form Horn + batched RANSAC +
 GN refinement.
 
-TPU-native replacement for the reference's Sim3Solver
+Replacement for the reference's Sim3Solver
 (/root/reference app/src/main/cpp/src/Sim3Solver.cc: 3-point Horn absolute
 orientation with scale inside a sequential RANSAC, reprojection-checked in
 both cameras) and Optimizer::OptimizeSim3 (Optimizer.cc:2134: g2o solve over

@@ -1,6 +1,6 @@
 """Two-view reconstruction for monocular initialization.
 
-TPU-native re-design of the reference's TwoViewReconstruction
+Re-design of the reference's TwoViewReconstruction
 (/root/reference app/src/main/cpp/src/TwoViewReconstruction.cc: parallel
 8-point F and 4-point H RANSAC with sigma-scored symmetric errors, model
 selection by score ratio, motion-hypothesis cheirality check, triangulation —

@@ -1,12 +1,12 @@
 """Sliding-window visual-inertial bundle adjustment (LocalInertialBA).
 
-TPU-native re-design of the reference's LocalInertialBA
+Re-design of the reference's LocalInertialBA
 (/root/reference app/src/main/cpp/src/Optimizer.cc:2405: temporal window of
 10 (or 25 when bLarge) keyframes with VertexPose/VertexVelocity/Vertex*Bias
 per KF, EdgeMono/EdgeStereo reprojection, EdgeInertial between consecutive
 KFs, EdgeGyroRW/EdgeAccRW bias random walks, the KF before the window fixed).
 
-Design decisions for the TPU (documented deviations):
+Design decisions (documented deviations):
   * The pass alternates with the visual Schur BA (mapping/map_ba.py): the
     visual pass refines poses + landmarks, this pass jointly refines pose +
     velocity per window keyframe and a window-shared bias against the IMU

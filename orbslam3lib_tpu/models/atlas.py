@@ -1,6 +1,6 @@
 """Atlas: multi-map container with new-map spawning and Sim3 merge.
 
-TPU-native re-design of the reference's Atlas
+Re-design of the reference's Atlas
 (/root/reference app/src/main/cpp/src/Atlas.cc: CreateNewMap/ChangeMap/
 GetCurrentMap/SetMapBad — the multi-session & elastic-recovery backbone,
 SURVEY.md §5.3: on unrecoverable tracking loss a NEW map is spawned

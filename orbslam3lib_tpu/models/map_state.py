@@ -1,6 +1,6 @@
 """Tensor map model: keyframes + landmarks as fixed-capacity struct-of-arrays.
 
-TPU-native re-design of the reference's pointer-heavy map data model
+Re-design of the reference's pointer-heavy map data model
 (/root/reference app/src/main/cpp: Map/KeyFrame/MapPoint classes with mutex-
 guarded observation dictionaries, covisibility edge maps and spanning trees —
 Map.h:40-180, KeyFrame.h, MapPoint.h). Following SURVEY.md §7, the graph
@@ -242,7 +242,7 @@ def observation_matrix(m: MapState) -> jnp.ndarray:
 @jax.jit
 def covisibility(m: MapState) -> jnp.ndarray:
     """(K, K) shared-observation counts — KeyFrame::UpdateConnections'
-    covisibility weights as one MXU matmul: C = O @ O^T."""
+    covisibility weights as one matmul: C = O @ O^T."""
     O = observation_matrix(m)
     return O @ O.T
 

@@ -1,7 +1,7 @@
 """Binary BoW vocabulary: k-medians Hamming tree + batched descent + dense
 tf-idf scoring.
 
-TPU-native replacement for the reference's DBoW2 stack
+Replacement for the reference's DBoW2 stack
 (/root/reference app/src/main/cpp: CustomVocabulary.h binary fast-loader over
 DBoW2 TemplatedVocabulary; KeyFrameDatabase.{h,cc} inverted-file index with
 DetectNBestCandidates / DetectRelocalizationCandidates). Differences, by
@@ -12,11 +12,11 @@ design (SURVEY.md §2.3 "batched tree descent as gather/argmin kernels"):
     any descriptor sample (there is no downloadable ORB vocab in this
     environment) and save/load as .npz;
   * descent is fully batched: every level is one gather of k child centroids
-    per descriptor + one Hamming argmin (MXU matmul), N descriptors at once;
+    per descriptor + one Hamming argmin (matmul), N descriptors at once;
   * the inverted file becomes a dense (K, W) tf-idf matrix: database query =
     one matvec; similarity scores for ALL keyframes in one shot. At W=4096
-    words and K<=1024 keyframes this is a few MB — brute force beats index
-    chasing on TPU.
+    words and K<=1024 keyframes this is a few MB — brute force on the
+    device instead of index chasing.
 
 L1 similarity score follows DBoW2: s(v, w) = 1 - 0.5 * |v/|v| - w/|w||_1.
 """

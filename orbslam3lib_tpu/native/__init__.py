@@ -6,39 +6,58 @@ pieces where a pointer-chase beats a dense device pass (SURVEY.md §7 "BoW
 tree descent ... candidate for host CPU"). The JAX implementations in
 models/vocabulary.py remain the oracle and the on-device option.
 
-The shared library is compiled once with g++ -O3 next to the sources and
-rebuilt whenever the .cpp is newer than the cached .so. Import failures
-(no compiler, sandbox) degrade gracefully: `load_library()` returns None and
-callers fall back to the JAX path.
+The shared library is compiled with g++ at first use, from the committed
+source only, into a file named by a hash of the source, the flags and the
+host architecture, so a stale or foreign build is never loaded. Build
+failures (no compiler) degrade gracefully: `load_library()` returns
+None and callers fall back to the JAX path.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import tempfile
 from typing import Optional
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "bow.cpp")
-_LIB = os.path.join(_DIR, "_bow.so")
+# portable flags: the library may be built on one host and loaded on another
+# of the same architecture (no -march=native)
+_FLAGS = ("-O3", "-shared", "-fPIC")
+
+
+def _lib_path() -> str:
+    with open(_SRC, "rb") as f:
+        h = hashlib.sha256(f.read())
+    h.update(" ".join(_FLAGS + (platform.machine(),)).encode())
+    return os.path.join(_DIR, f"_bow-{h.hexdigest()[:16]}.so")
+
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _build() -> bool:
+def _build(lib_path: str) -> bool:
+    if os.path.exists(lib_path):
+        return True
     try:
-        if (os.path.exists(_LIB)
-                and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC)):
-            return True
-        r = subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-             "-o", _LIB, _SRC],
-            capture_output=True, text=True, timeout=120)
-        return r.returncode == 0
-    except Exception:
+        # build to a temp name and rename: concurrent importers (test
+        # workers) never see a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_DIR)
+        os.close(fd)
+        r = subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC],
+                           capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            os.unlink(tmp)
+            return False
+        os.replace(tmp, lib_path)
+        return True
+    except (OSError, subprocess.SubprocessError):
         return False
 
 
@@ -48,10 +67,11 @@ def load_library() -> Optional[ctypes.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not _build():
+    lib_path = _lib_path()
+    if not _build(lib_path):
         return None
     try:
-        lib = ctypes.CDLL(_LIB)
+        lib = ctypes.CDLL(lib_path)
     except OSError:
         return None
     u64p = ctypes.POINTER(ctypes.c_uint64)

@@ -1,7 +1,7 @@
 """Fused ORB extraction pipeline: pyramid -> FAST -> per-tile top-K ->
 orientation -> BRIEF, one jitted graph per image geometry.
 
-This is the TPU-native replacement for the whole DSP side of the reference
+This is the replacement for the whole DSP side of the reference
 (/root/reference dsp/src/orbslam_dsp.cpp extractORB:630-802: de-interleave,
 per-level bilinear reduce + HWA detect [HOT LOOP 1], per-level ic_angle +
 descriptors [HOT LOOP 2]). Design mapping (SURVEY.md §2.4):
@@ -12,7 +12,7 @@ descriptors [HOT LOOP 2]). Design mapping (SURVEY.md §2.4):
     whole per-level chain as one fused program;
   * the 128x80 VTCM sub-image blocks (P5) become the per-tile top-K grid —
     same tile geometry (reference blocks 128w x 80h, budget 16/block,
-    orbslam_dsp.cpp:57-60), but tiles live in VMEM;
+    orbslam_dsp.cpp:57-60);
   * the dynamic feature-budget threshold controller
     (orbslam_dsp_hwa_pipeline.h:18-19: 170 +- 30 features) stays on the host
     (see `ThresholdController`) and feeds the traced `threshold` scalar, so
@@ -66,23 +66,14 @@ class Features:
 
 
 def _detect_level(img_l: jnp.ndarray):
-    """One pyramid level -> per-tile top-K candidates (score, y, x).
-
-    On TPU the score+NMS pass runs as the fused Pallas kernel
-    (ops/pallas_fast.py): one VMEM-resident row-band sweep instead of the
-    XLA path's (16, H, W) rolled ring stack in HBM. Bit-equal by contract
-    (oracle-tested in tests/test_pallas_ops.py and on device)."""
-    if jax.default_backend() == "tpu":
-        from .pallas_fast import fast_scores_nms
-        score = fast_scores_nms(img_l, margin=DETECT_MARGIN)
-    else:
-        score = fast.nms3x3(fast.fast_scores(img_l, margin=DETECT_MARGIN))
-    return fast.tile_topk(score, TILE_H, TILE_W, TILE_K, approx=True)
+    """One pyramid level -> per-tile top-K candidates (score, y, x)."""
+    score = fast.nms3x3(fast.fast_scores(img_l, margin=DETECT_MARGIN))
+    return fast.tile_topk(score, TILE_H, TILE_W, TILE_K)
 
 
 def _canvas(levels: List[jnp.ndarray], h0: int, w0: int) -> jnp.ndarray:
     """Stack all pyramid levels into one (L, H0, W0) zero-padded array —
-    the VMEM analog of the reference's VTCM block cache; lets orientation /
+    the analog of the reference's VTCM block cache; lets orientation /
     descriptor gathers index a single tensor by (level, y, x)."""
     return jnp.stack([
         jnp.pad(l, ((0, h0 - l.shape[0]), (0, w0 - l.shape[1]))) for l in levels
@@ -119,7 +110,7 @@ def extract_orb(img: jnp.ndarray, threshold: jnp.ndarray,
     valid = s > threshold
     s_masked = jnp.where(valid, s, 0.0)
     k = min(max_kp, s.shape[0])
-    top_s, top_i = jax.lax.approx_max_k(s_masked, k, recall_target=0.95)
+    top_s, top_i = jax.lax.top_k(s_masked, k)
     if k < max_kp:  # pad up to capacity
         pad = max_kp - k
         top_s = jnp.pad(top_s, (0, pad))

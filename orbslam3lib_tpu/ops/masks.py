@@ -1,11 +1,10 @@
-"""Arithmetic (pred-free) gating masks for TPU hot paths.
+"""Arithmetic (pred-free) gating masks for the hot paths.
 
-Empirical finding on the v5e backend (see bench history): a 2-D boolean
-tensor produced by comparing a matmul-derived matrix, then select/convert-ed
-and fed into a reduction, triggers a pathological Mosaic/XLA compilation
-(65 s compile, ~40 ms/call, and the process stays degraded afterwards). The
-same logic expressed purely with min/max/clip arithmetic compiles and runs at
-full VPU speed (0.18 ms for the whole matcher).
+Gates over matmul-derived 2-D matrices are expressed with min/max/clip
+arithmetic instead of 2-D boolean tensors fed through select/convert into a
+reduction. The style was adopted for a compiler that handled the boolean
+form badly; whether the plain compare is as fast on the GPU is not measured
+yet (ROADMAP queue 3), and where it is, the exact compares can return.
 
 Rules used across the hot paths:
   * gates are float32 in [0, 1], combined by multiplication (AND);
@@ -14,9 +13,9 @@ Rules used across the hot paths:
     tolerances) or a sharpness factor;
   * scalars entering 2-D ops MUST be inline Python-float literals / static
     args — a captured f32[] scalar *array* operand (e.g. jnp.float32(...)
-    or a traced scalar) in a f32[N,N] op reliably reproduces the same
-    pathological compile. Hence BIG is a Python float and the matcher /
-    search functions take their thresholds as static floats.
+    or a traced scalar) in a f32[N,N] op hit the same compile problem.
+    Hence BIG is a Python float and the matcher / search functions take
+    their thresholds as static floats.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Keypoint orientation (intensity centroid) and rotated-BRIEF descriptors.
 
-TPU-native re-design of the reference DSP kernels
+Re-design of the reference DSP kernels
 (/root/reference dsp/src/orbslam_dsp_rb.cpp: ic_angle_simd:32 accumulates
 m01/m10 moments over the 31x31 circular patch from the VTCM cache;
 calculate_orb_descriptors_optimized16:547 rotates the 256-pair pattern by the
@@ -8,7 +8,7 @@ calculate_orb_descriptors_optimized16:547 rotates the 256-pair pattern by the
 
   * ONE per-keypoint patch gather (45x45 raw pixels) feeds everything;
     the patch gather is the only gather in the whole pipeline — all
-    downstream sampling is dense matmul work on the MXU;
+    downstream sampling is dense matmul work;
   * orientation moments m10/m01 are a (N, 2025) @ (2025, 2) matmul against
     constant circular-mask weights (the reference's umax accumulation);
   * the 7x7 Gaussian pre-blur (ORBextractor_old.cc computeDescriptors)
@@ -24,7 +24,7 @@ calculate_orb_descriptors_optimized16:547 rotates the 256-pair pattern by the
     ALL bins is one dense (A*256, 1521) x (1521, N) matmul with exact f32
     accumulation, followed by one row-gather to select each keypoint's bin;
   * descriptors are a (N, 256) 0/1 int8 bit matrix — the layout that lets
-    the Hamming matcher ride the MXU (ops/matcher.py).
+    the Hamming matcher run as one matmul (ops/matcher.py).
 
 Scalar NumPy oracles mirror the reference's *_scalar test pattern
 (orbslam_dsp_rb.cpp:356; SURVEY.md §4).
@@ -61,16 +61,14 @@ def _circular_mask_and_coords():
 
 
 RAW_FLAT = RAW_PATCH * RAW_PATCH          # 2025
-RAW_FLAT_PAD = (RAW_FLAT + 127) // 128 * 128  # 2048 — MXU-aligned contraction
+RAW_FLAT_PAD = (RAW_FLAT + 127) // 128 * 128  # 2048 — aligned contraction
 
 
 @lru_cache(maxsize=None)
 def _moment_weights_raw() -> np.ndarray:
     """(RAW_FLAT_PAD, 8) constant weights: one matmul computes (m10, m01)
     over the centered 31x31 circular sub-patch of the raw patch. Padded to
-    MXU-aligned dims (2048 x 8): matmuls with stray dims like (2025, 2) hit
-    a pathological Mosaic lowering on this backend that degrades the whole
-    process's dispatch path ~30x (measured; see ops/masks.py)."""
+    aligned dims (2048 x 8) instead of the stray (2025, 2) shape."""
     mask, uu, vv = _circular_mask_and_coords()
     W = np.zeros((RAW_PATCH, RAW_PATCH, 2), np.float32)
     lo, hi = RAW_RADIUS - HALF_PATCH, RAW_RADIUS + HALF_PATCH + 1
@@ -119,13 +117,13 @@ def _compare_matrices() -> np.ndarray:
 
 
 BRIEF_FLAT = BRIEF_PATCH * BRIEF_PATCH            # 1521
-BRIEF_FLAT_PAD = (BRIEF_FLAT + 127) // 128 * 128  # 1536 — MXU-aligned
+BRIEF_FLAT_PAD = (BRIEF_FLAT + 127) // 128 * 128  # 1536 — aligned
 
 
 @lru_cache(maxsize=None)
 def _compare_matrices_dev():
     """Concrete bf16 copy of the (unblurred) compare tensor, padded to an
-    MXU-aligned contraction dim (see _moment_weights_raw); for the compat
+    aligned contraction dim (see _moment_weights_raw); for the compat
     pre-blurred-canvas brief_descriptors path."""
     D = _compare_matrices().reshape(N_ANGLE_BINS * 256, -1)
     Dp = np.zeros((N_ANGLE_BINS * 256, BRIEF_FLAT_PAD), np.float32)
@@ -141,9 +139,8 @@ def _compare_blur_matrices() -> np.ndarray:
     The 7-tap Gaussian pre-blur is linear, so it folds into the compare
     tensor: with blurred = B P B^T (B the banded (39,45) blur),
     v[b] = <D[b], blurred> = <B^T D[b] B, P>. One matmul then does
-    blur + BRIEF sampling + compare for all 64 angle bins at once — and the
-    standalone (39,45)/(2025,2)-shaped matmuls whose stray dims trigger the
-    Mosaic degradation (see _moment_weights_raw) disappear entirely."""
+    blur + BRIEF sampling + compare for all 64 angle bins at once, and the
+    standalone (39,45)/(2025,2)-shaped matmuls disappear entirely."""
     D = _compare_matrices().astype(np.float64)          # (A, 256, 39*39)
     B = _blur_matrix().astype(np.float64)               # (39, 45)
     A = N_ANGLE_BINS
@@ -204,10 +201,9 @@ def _bits_from_compare(D: jnp.ndarray, flat_padded: jnp.ndarray,
         precision=jax.lax.Precision.DEFAULT)          # (A*256, N)
     v = v.reshape(A, 256, -1)
     bins = bin_angles(angle)                          # (N,)
-    # bin selection as a one-hot weighted reduce (vectorizes on the VPU;
-    # a take_along_axis here would be 256*N scalar gathers). Arithmetic
-    # one-hot + sign-based bit: 2-D bool compare/convert is the documented
-    # Mosaic pathology (ops/masks.py) — it degrades the whole process
+    # bin selection as a one-hot weighted reduce (elementwise, where a
+    # take_along_axis would be 256*N scalar gathers). Arithmetic one-hot +
+    # sign-based bit, in the pred-free style of ops/masks.py
     diff = jnp.abs(jnp.arange(A, dtype=jnp.int32)[:, None]
                    - bins[None, :]).astype(v.dtype)              # (A, N)
     oh = jnp.clip(1.0 - diff, 0.0, 1.0)
@@ -218,7 +214,7 @@ def _bits_from_compare(D: jnp.ndarray, flat_padded: jnp.ndarray,
 
 def _brief_from_raw(raw_flat_padded: jnp.ndarray, angle: jnp.ndarray) -> jnp.ndarray:
     """raw_flat_padded (N, RAW_FLAT_PAD) unblurred patches -> (N, 256) int8
-    bits via the fused blur+compare matmul (one MXU-aligned dot for all 64
+    bits via the fused blur+compare matmul (one aligned dot for all 64
     angle bins; accumulation f32)."""
     return _bits_from_compare(_compare_blur_matrices_dev(), raw_flat_padded,
                               angle)

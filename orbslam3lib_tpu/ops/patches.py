@@ -1,21 +1,18 @@
-"""Batched patch extraction from a pyramid canvas — MXU-native.
+"""Batched patch extraction from a pyramid canvas as a gather + matmul.
 
-Extracting a (h, w) window per keypoint is the one op the whole front end
-cannot express as dense math... almost. On this TPU backend every slice-style
-formulation (vmapped dynamic_slice, lax.gather of (1,h,w) slices) lowers to a
-serial while loop of dynamic-update-slices at ~1.2 us per keypoint — a
-millisecond-class cost for 1k keypoints (measured; see the round-2 commit
-log). The vectorizing decomposition used here:
+Extracting a (h, w) window per keypoint as a vmapped dynamic_slice lowers to
+a loop of per-keypoint slices. The vectorizing decomposition used here:
 
   1. ROW gather: (N*h,) row indices into the (L*H, W) flattened canvas —
-     embedding-lookup shape, which the TPU gathers at full bandwidth;
+     an embedding-lookup-shaped gather;
   2. COLUMN window: a batched one-hot matmul
      patch[n,i,j] = sum_c strip[n,i,c] * (c == x0[n]+j)
-     that rides the MXU and never materializes per-element indices.
+     that never materializes per-element indices.
 
 This mirrors the reference DSP's two-phase VTCM block caching (rows DMA'd,
 columns vector-selected; orbslam_dsp_pyramid.h:110-130) in spirit: bulk
-contiguous moves + dense lane-parallel selection.
+contiguous moves + dense lane-parallel selection. Whether a plain 2-D gather
+is as fast on the GPU is not measured yet (ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -31,8 +28,9 @@ def gather_patches(canvas: jnp.ndarray, level: jnp.ndarray, y: jnp.ndarray,
 
     Out-of-range rows are clamped; out-of-range columns produce zeros —
     callers enforce detection margins, so neither occurs for valid
-    keypoints. Column selection runs at HIGH matmul precision (one-hot x
-    value: error <= 2^-24 relative, effectively exact).
+    keypoints. Column selection runs at HIGHEST matmul precision, where a
+    one-hot x value product is exact (HIGH is TF32 on the GPU and would
+    round the value to 10 mantissa bits).
     """
     L, H, W = canvas.shape
     flat = canvas.reshape(L * H, W)
@@ -45,12 +43,10 @@ def gather_patches(canvas: jnp.ndarray, level: jnp.ndarray, y: jnp.ndarray,
     cols = (x[:, None] + x_off
             + jnp.arange(w, dtype=jnp.int32)[None, :])          # (N, w)
     iota_w = jax.lax.broadcasted_iota(jnp.int32, (1, W, 1), 1)
-    # arithmetic one-hot — an (iota == cols) bool compare + convert here is
-    # the documented Mosaic pathology (ops/masks.py): it compiles, but leaves
-    # the whole process's dispatch path degraded ~30x
+    # arithmetic one-hot (the pred-free gating style of ops/masks.py)
     diff = jnp.abs(iota_w - cols[:, None, :]).astype(strips.dtype)
     onehot = jnp.clip(1.0 - diff, 0.0, 1.0)                     # (N, W, w)
     return jax.lax.dot_general(
         strips, onehot, (((2,), (1,)), ((0,), (0,))),
         preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGH)                       # (N, h, w)
+        precision=jax.lax.Precision.HIGHEST)                    # (N, h, w)

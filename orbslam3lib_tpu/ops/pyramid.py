@@ -1,19 +1,19 @@
 """Image pyramid: bilinear multi-level resize, batched over the eye dimension.
 
-TPU-native re-design of the reference's HVX pyramid
+Re-design of the reference's HVX pyramid
 (/root/reference dsp/src/orbslam_dsp_pyramid.{h,cpp}: 8 levels, 640x400 ->
 128x80, per-level bilinear reduction with precomputed gather indices and
 coefficient vectors, orbslam_dsp_pyramid.cpp:448). Geometry contract
 (orbslam_dsp_pyramid.h:37-66): level widths {640,512,384,314,256,203,161,128},
 i.e. scale chain 5/4, 4/3, ... ending at 128x80.
 
-Design notes (TPU-first):
+Design notes:
   * Each level has a static shape -> XLA compiles one fused resize per level;
     the whole pyramid is a single jitted call.
   * The separable bilinear resize is expressed as two small dense matmuls
     (H_out x H_in) @ img @ (W_in x W_out) with precomputed sparse-as-dense
-    interpolation matrices. On TPU this rides the MXU and is far faster than
-    gather; the matrices are tiny (<= 640x512 f32) and constant-folded.
+    interpolation matrices (tiny, <= 640x512 f32, constant-folded) instead
+    of a gather.
   * Batched over leading dims (eye=2) via einsum.
 """
 from __future__ import annotations
@@ -73,15 +73,15 @@ def _resize_bilinear(img: jnp.ndarray, h_out: int, w_out: int) -> jnp.ndarray:
     h_in, w_in = img.shape[-2], img.shape[-1]
     Mh = jnp.asarray(_resize_matrix(h_in, h_out))   # (h_out, h_in)
     Mw = jnp.asarray(_resize_matrix(w_in, w_out)).T  # (w_in, w_out)
-    # HIGH precision (3-pass bf16): ~2^-16 relative error, i.e. milligray on
-    # 0..255 pixels — exact enough for FAST/BRIEF, ~2x the MXU throughput of
-    # the package-wide HIGHEST default (geometry-driven, see __init__.py)
+    # HIGHEST (full f32): HIGH is TF32 on the GPU (10 mantissa bits), a
+    # tenth of a grey level on 0..255 pixels, which moves FAST scores across
+    # the detection threshold; the matrices are tiny, so full f32 is cheap
     tmp = jnp.einsum("oh,...hw->...ow", Mh, img,
                      preferred_element_type=jnp.float32,
-                     precision=jax.lax.Precision.HIGH)
+                     precision=jax.lax.Precision.HIGHEST)
     return jnp.einsum("...ow,wp->...op", tmp, Mw,
                       preferred_element_type=jnp.float32,
-                      precision=jax.lax.Precision.HIGH)
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def build_pyramid(img: jnp.ndarray, n_levels: int = N_LEVELS) -> List[jnp.ndarray]:

@@ -1,10 +1,10 @@
 """Distributed bundle adjustment: landmarks sharded over a device mesh,
-Schur-complement reduction via psum over ICI.
+Schur-complement reduction via psum over the mesh.
 
 This is the new capability the reference does not have (SURVEY.md §2.4: "no
 multi-node distribution in the reference — the north star adds it: keyframes/
-map blocks sharded across a TPU pod slice, per-block Hessians reduced with
-psum/all-gather over ICI, global BA sharded across hosts over DCN").
+map blocks sharded across devices, per-block Hessians reduced with
+psum/all-gather, global BA sharded across hosts").
 
 Decomposition (the standard distributed-Schur structure, expressed with
 shard_map + XLA collectives instead of MPI):
@@ -16,7 +16,7 @@ shard_map + XLA collectives instead of MPI):
     partial camera-system contributions  S_loc = Hcc_loc - W Hpp^-1 W^T,
     b_loc — all dense local math identical to mapping/local_ba.py;
   * ONE psum over "mp" reduces S (C6 x C6) and b (C6) — a tiny collective
-    that rides ICI; every device then solves the same reduced system
+    (NCCL between GPUs); every device then solves the same reduced system
     (redundantly, cheaper than a broadcast) and back-substitutes its own
     landmark deltas with zero further communication.
 
@@ -200,7 +200,7 @@ def dist_bundle_adjust(prob: BAProblem, cam_params, mesh: Mesh,
 
             # === THE collective: reduce the camera system over the mesh ===
             # one fused psum over the pytree (one collective launch instead
-            # of three; on ICI the three payloads ride one transfer)
+            # of three)
             S, b_schur, Hcc_sum = jax.lax.psum((S_loc, b_schur_loc, Hcc),
                                                axis)
 

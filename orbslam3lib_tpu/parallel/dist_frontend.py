@@ -2,17 +2,17 @@
 
 The reference's throughput story is one frame at a time through one DSP
 (SURVEY.md §3.2); its multi-session capability (Atlas) processes sequences
-strictly serially. On a TPU slice the natural extension is frame-level data
-parallelism for offline/multi-session mapping: shard a batch of frames over
-the mesh's data axis, run the full extraction + rectified stereo matching
+strictly serially. On several devices the natural extension is frame-level
+data parallelism for offline/multi-session mapping: shard a batch of frames
+over the mesh's data axis, run the full extraction + rectified stereo matching
 graph per frame on its owning device, and return device-sharded Features
 that downstream per-sequence trackers consume locally. Zero collectives —
 the batch axis is embarrassingly parallel; XLA just partitions the whole
 jitted graph under the in/out shardings.
 
 Use cases: multi-session map building (each device ingests one session's
-frames), dataset preprocessing at pod scale, and the driver's multi-chip
-dry run.
+frames), dataset preprocessing across devices, and the multi-device dry run
+(`__graft_entry__.dryrun_multichip`).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """System: the public API facade + frame pipeline.
 
-TPU-native re-design of the reference's System layer
+Re-design of the reference's System layer
 (/root/reference app/src/main/cpp/src/System.cc): constructor loads the
 vocabulary, builds Atlas/KeyFrameDatabase, spawns the mapping/loop threads
 and the AHB-consumer thread (System.cc:48-223); TrackStereo/TrackStereoAHB/

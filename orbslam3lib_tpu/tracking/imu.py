@@ -1,6 +1,6 @@
 """IMU preintegration on the SO(3) manifold + inertial state prediction.
 
-TPU-native re-design of the reference's ImuTypes
+Re-design of the reference's ImuTypes
 (/root/reference app/src/main/cpp/src/ImuTypes.{h,cc}: Preintegrated with
 15x15 covariance, bias Jacobians JRg/JVg/JVa/JPg/JPa — ImuTypes.h:159-168,
 IntegrateNewMeasurement:126; SO3 right-Jacobians :193-199) following the

@@ -1,6 +1,6 @@
 """Visual-inertial per-frame optimization and IMU initialization solves.
 
-TPU-native replacement for the reference's inertial g2o solves:
+Replacement for the reference's inertial g2o solves:
   * PoseInertialOptimizationLastKeyFrame / LastFrame
     (/root/reference app/src/main/cpp/src/Optimizer.cc:4531, 4918): optimize
     the current frame's 15-dof state [pose, velocity, gyro bias, accel bias]
@@ -11,7 +11,7 @@ TPU-native replacement for the reference's inertial g2o solves:
     over a keyframe window with poses fixed.
 
 Design: residuals are assembled as one flat vector r(x) over a parameter
-vector x, Jacobians come from jax.jacfwd (closed forms add nothing on TPU at
+vector x, Jacobians come from jax.jacfwd (closed forms add nothing at
 these sizes — the solve is a 15x15 / ~(6+3K)-dim dense system), and damping /
 iteration happens in a lax.scan. All fixed capacity + masks.
 """

@@ -1,12 +1,12 @@
 """Association searches: projection matching and stereo matching.
 
-TPU-native re-design of the reference's ORBmatcher
+Re-design of the reference's ORBmatcher
 (/root/reference app/src/main/cpp/src/ORBmatcher.cc) and of the stereo
 matchers in Frame.cc. The reference probes a 64x48 per-frame feature grid
 cell by cell (GetFeaturesInArea, Frame.cc:673; SearchByProjection hot loop,
-ORBmatcher.cc:1736-1792). On TPU the grid disappears: the spatial gate, the
+ORBmatcher.cc:1736-1792). Here the grid disappears: the spatial gate, the
 level-compatibility gate and the descriptor distances are all computed as
-dense (P, N) gating matrices — the descriptor term is one 256-deep MXU
+dense (P, N) gating matrices — the descriptor term is one 256-deep
 matmul (ops/matcher.py) and the whole search is a handful of fused
 elementwise passes. This is the `vmap over map points` equivalent of the
 reference's SearchByProjectionThread sharding scaffold (SURVEY.md §2.4 P7).
@@ -372,18 +372,8 @@ def match_descriptors_ratio(desc_a, valid_a, desc_b, valid_b,
                             th: float = TH_LOW, ratio: float = NN_RATIO_DEFAULT):
     """Plain descriptor kNN-2 with Lowe ratio + threshold (the
     SearchForInitialization / fisheye-stereo style gate). Returns
-    (idx (Na,), ok (Na,) bool).
-
-    On TPU this routes to the fused Pallas kernel (ops/pallas_matcher.py:
-    distance tile + dual-min never leave VMEM); elsewhere to the XLA matmul
-    formulation — same contract, oracle-tested against each other.
-    """
-    if jax.default_backend() == "tpu":
-        from ..ops.pallas_matcher import knn_match_fused
-        i1, d1, d2 = knn_match_fused(desc_a, desc_b, valid_a, valid_b)
-    else:
-        from ..ops.matcher import knn2
-        d = hamming_matrix(desc_a, desc_b, valid_a, valid_b)
-        i1, d1, d2 = knn2(d)
+    (idx (Na,), ok (Na,) bool)."""
+    from ..ops.matcher import knn2
+    i1, d1, d2 = knn2(hamming_matrix(desc_a, desc_b, valid_a, valid_b))
     ok = valid_a & (d1 <= th) & (d1 <= ratio * d2)   # 1-D preds: fine
     return jnp.where(ok, i1, -1), ok

@@ -1,6 +1,6 @@
 """Motion-only pose optimization: batched Gauss-Newton/LM on SE(3).
 
-TPU-native replacement for the reference's g2o PoseOptimization
+Replacement for the reference's g2o PoseOptimization
 (/root/reference app/src/main/cpp/src/Optimizer.cc:813-1120: per-frame solve
 with EdgeSE3ProjectXYZOnlyPose / EdgeStereoSE3ProjectXYZOnlyPose, Huber
 kernels with deltas sqrt(5.991)/sqrt(7.815), 4 outer rounds with chi2
@@ -9,10 +9,10 @@ re-classification between rounds; the Lynx build cuts the schedule to
 
 Design: instead of a graph of edge objects, all observations live in fixed-
 capacity masked arrays and every LM iteration is one fused batched pass:
-residuals/Jacobians for all edges at once (VPU), 6x6 normal equations by
-einsum reduction (MXU), closed-form 6x6 solve. The outer chi2-gating rounds
-of the reference become iterations of a lax.fori_loop whose inlier mask is
-recomputed each round — identical semantics, no host round trips.
+residuals/Jacobians for all edges at once (elementwise), 6x6 normal
+equations by einsum reduction, closed-form 6x6 solve. The outer chi2-gating
+rounds of the reference become iterations of a lax.fori_loop whose inlier
+mask is recomputed each round — identical semantics, no host round trips.
 """
 from __future__ import annotations
 
@@ -100,7 +100,7 @@ def pose_optimization(R0, t0, obs: PoseObs, cam_params,
         r, J, chi2, behind = _residuals_jacobians(R, t, obs, cam_model, cam_params, bf)
         w_huber = huber_weight(chi2, delta)
         w = obs.inv_sigma2 * w_huber * inlier * obs.valid * (~behind)
-        # H = sum_e J^T w J ; b = sum_e J^T w r    (einsum reduction -> MXU)
+        # H = sum_e J^T w J ; b = sum_e J^T w r    (einsum reduction)
         H = jnp.einsum("nri,n,nrj->ij", J, w, J)
         b = jnp.einsum("nri,n,nr->i", J, w, r)
         H = H + lm_lambda * jnp.diag(jnp.diag(H)) + 1e-8 * jnp.eye(6)

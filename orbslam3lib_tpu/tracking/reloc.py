@@ -1,6 +1,6 @@
 """Relocalization: BoW candidate retrieval + batched PnP RANSAC + pose refine.
 
-TPU-native replacement for the reference's relocalization path
+Replacement for the reference's relocalization path
 (/root/reference app/src/main/cpp/src/Tracking.cc:3670 Relocalization():
 KeyFrameDatabase::DetectRelocalizationCandidates -> SearchByBoW ->
 MLPnPsolver::iterate RANSAC -> PoseOptimization -> projection refine).

@@ -1,6 +1,6 @@
 """Camera models: Pinhole and Kannala-Brandt8 (fisheye), pure jnp.
 
-TPU-native re-design of the reference's GeometricCamera hierarchy
+Re-design of the reference's GeometricCamera hierarchy
 (/root/reference app/src/main/cpp/include/CameraModels/GeometricCamera.h:42-72,
 Pinhole.cpp, KannalaBrandt8.cpp). Instead of virtual dispatch over camera
 objects, each model is a set of batched pure functions parameterised by a

@@ -1,6 +1,6 @@
 """Lie-group substrate: SO(3), SE(3), Sim(3) as pure jnp functions.
 
-TPU-native replacement for the reference's Sophus dependency (see
+Replacement for the reference's Sophus dependency (see
 /root/reference app/src/main/cpp: Sophus is used throughout Tracking/Optimizer,
 e.g. G2oTypes.h:74 ImuCamPose). Everything here is functional, batched over
 arbitrary leading dimensions, and safe under jit/vmap/grad.

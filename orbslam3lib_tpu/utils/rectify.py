@@ -1,6 +1,6 @@
 """Stereo rectification: host-side map precompute + on-device remap.
 
-TPU-native re-design of the reference's rectification path
+Re-design of the reference's rectification path
 (/root/reference app/src/main/cpp/src/Settings.cc:177 `needToRectify` ->
 Settings.cc:485 precomputeRectificationMaps: cv::stereoRectify +
 cv::initUndistortRectifyMap, applied per frame with cv::remap in
@@ -174,10 +174,9 @@ def remap_bilinear_shifts(img: jnp.ndarray, mp: jnp.ndarray,
     """Bilinear remap as two bounded shift-and-accumulate passes (vertical
     then horizontal) instead of 2-D gathers.
 
-    XLA lowers the generic `img[yi, xi]` gather of remap_bilinear to
-    scalar-unit address math on TPU — measured ~24 ms per 2x400x640 stereo
-    frame, which made on-device rectification the dominant cost of the
-    distorted-input path (~190 ms per 4-frame burst). Rectification maps
+    The generic `img[yi, xi]` gather of remap_bilinear was slow on the
+    backend this path was written for; whether it is as fast as this path
+    on the GPU is not measured yet (ROADMAP queue 3). Rectification maps
     have BOUNDED smooth displacements, so each axis resample is expressible
     as sum_k w_k(y,x) * shift(img, k) over the static range from
     `remap_bounds` — pure vectorized multiply-adds.

@@ -12,8 +12,7 @@ import jax.numpy as jnp
 
 # chi2 gates from the reference (Optimizer.cc:984-998 and SURVEY.md §8).
 # NOTE: Python floats, NOT jnp scalars — captured f32[] array constants in
-# large elementwise ops trigger the TPU-backend compile pathology documented
-# in ops/masks.py.
+# large elementwise ops hit the compile problem documented in ops/masks.py.
 CHI2_MONO = 5.991    # 2-dof 95%
 CHI2_STEREO = 7.815  # 3-dof 95%
 DELTA_MONO = math.sqrt(CHI2_MONO)

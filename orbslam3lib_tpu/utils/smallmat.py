@@ -1,13 +1,10 @@
 """Closed-form batched small-matrix kernels.
 
 XLA lowers `jnp.linalg.{inv,svd}` on batched tiny matrices to iterative /
-LU routines that run on the TPU's scalar+vector units far from peak:
-measured on-device (prof, v5e): `inv` on (4096,3,3) = 4.4 ms, `svd` on
-(4096,4,4) = 21.4 ms — while the closed-form adjugate formulations below
-run the same batches in ~1.3 ms as pure VPU elementwise arithmetic. These
-sit in the per-keyframe mapper hot path (Schur landmark-block inverses,
-DLT triangulation), so the difference is directly visible in end-to-end
-frame throughput.
+LU routines; the closed-form adjugate formulations below are pure
+elementwise arithmetic over the batch. These sit in the per-keyframe mapper
+hot path (Schur landmark-block inverses, DLT triangulation). Their time on
+the GPU against `jnp.linalg` is not measured yet.
 
 All functions are batched over arbitrary leading dims and differentiable.
 """

@@ -1,9 +1,9 @@
 """Offline visualization: frame overlays, map renders, PLY export.
 
-TPU-native equivalent of the reference's Pangolin stack
+Equivalent of the reference's Pangolin stack
 (/root/reference app/src/main/cpp/src/Viewer.cc, FrameDrawer.cc,
 MapDrawer.cc — gated by USE_GRAPHICS and compiled out on device,
-CMakeLists.txt:21-25). On a headless TPU host the live GL window becomes
+CMakeLists.txt:21-25). On a headless host the live GL window becomes
 offline artifacts: PNG overlays of the tracked frame (FrameDrawer::DrawFrame
 semantics — keypoints colored by tracking state), top-down / 3-D map renders
 (MapDrawer::DrawMapPoints / DrawKeyFrames), and PLY point-cloud + trajectory

@@ -3,7 +3,7 @@ test_multiprocess_dist.py, one instance per process).
 
 Each process owns 4 virtual CPU devices; jax.distributed stitches them into
 one 8-device global mesh whose psum crosses the process boundary over Gloo —
-the same SPMD program shape as multi-host DCN on a TPU pod
+the same SPMD program shape as a multi-host cluster
 (SURVEY.md §4 "multi-process CPU meshes").
 """
 import os

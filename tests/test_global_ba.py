@@ -87,3 +87,23 @@ class TestGlobalBA:
         assert calls["n"] == 1  # polled once, honored immediately
         # one chunk of LM still improves the map
         assert cam_err(m2, true_poses) <= cam_err(m, true_poses)
+
+    def test_chunked_schedule_prunes_outliers(self):
+        """A 1-iteration chunking restarts bundle_adjust every iteration; the
+        chi2 pruning must still happen once the first chunks are done, so the
+        result matches the one-call schedule instead of being dragged by
+        the outliers."""
+        m, true_poses, _ = noisy_map()
+        xy = np.asarray(m.kf_xy).copy()
+        rng = np.random.default_rng(4)
+        for k in range(1, 6):
+            bad = rng.choice(F, F // 8, replace=False)
+            xy[k, bad] += rng.choice([-1, 1], (len(bad), 2)) * 25.0
+        m = m._replace(kf_xy=jnp.asarray(xy))
+        one = global_bundle_adjust(m, CAM, bf=33.0, n_iters=10, chunk=10,
+                                   n_ba_points=512)
+        chunked = global_bundle_adjust(m, CAM, bf=33.0, n_iters=10, chunk=1,
+                                       n_ba_points=512)
+        e_one = cam_err(one, true_poses)
+        e_chunked = cam_err(chunked, true_poses)
+        assert e_chunked < 1.5 * e_one + 1e-3, (e_one, e_chunked)

@@ -214,7 +214,7 @@ class TestInertialLoopClosing:
 class TestAsyncGBAMerge:
     def test_merge_propagates_new_keyframes_through_tree(self):
         m, true_poses, est_poses, descs = build_drifted_ring()
-        n_kf0, n_mp0 = int(m.n_kf), int(m.n_mp)
+        n_kf0 = int(m.n_kf)
 
         # "GBA result": shift every snapshot keyframe by a known world delta
         dR, dt = lie.se3_exp(jnp.asarray(
@@ -239,8 +239,20 @@ class TestAsyncGBAMerge:
             assert int(kid) == n_kf0 + j
             assert int(m2.kf_parent[int(kid)]) >= 0
 
-        m3 = merge_gba_result(m2, gba_R, gba_t, gba_pos,
-                              jnp.int32(n_kf0), jnp.int32(n_mp0))
+        # a landmark born during the GBA in a recycled slot (the slot held
+        # another landmark at launch): it must re-anchor through its own
+        # first keyframe, not take the dead occupant's GBA position
+        s = int(np.flatnonzero(np.asarray(m.mp_valid))[0])
+        p_born = np.asarray(m.mp_pos[s]) + np.float32(0.5)
+        m2 = m2._replace(mp_pos=m2.mp_pos.at[s].set(jnp.asarray(p_born)),
+                         mp_first_kf=m2.mp_first_kf.at[s].set(n_kf0))
+
+        m3 = merge_gba_result(m2, gba_R, gba_t, gba_pos, jnp.int32(n_kf0),
+                              m.mp_valid, m.mp_first_kf)
+        Rb, tb = np.asarray(m2.kf_R[n_kf0]), np.asarray(m2.kf_t[n_kf0])
+        Ra, ta = np.asarray(m3.kf_R[n_kf0]), np.asarray(m3.kf_t[n_kf0])
+        np.testing.assert_allclose(np.asarray(m3.mp_pos[s]),
+                                   Ra.T @ (Rb @ p_born + tb - ta), atol=1e-4)
         # snapshot keyframes take the GBA pose exactly
         np.testing.assert_allclose(np.asarray(m3.kf_R[:n_kf0]),
                                    np.asarray(gba_R[:n_kf0]), atol=1e-5)
@@ -260,10 +272,10 @@ class TestAsyncGBAMerge:
             np.testing.assert_allclose(np.asarray(tr_a), np.asarray(tr_b),
                                        atol=1e-4)
         # snapshot landmarks take the GBA position exactly
-        mp_old = np.asarray(m2.mp_valid[:n_mp0])
-        np.testing.assert_allclose(
-            np.asarray(m3.mp_pos[:n_mp0])[mp_old],
-            np.asarray(gba_pos[:n_mp0])[mp_old], atol=1e-5)
+        mp_old = np.array(m.mp_valid)
+        mp_old[s] = False
+        np.testing.assert_allclose(np.asarray(m3.mp_pos)[mp_old],
+                                   np.asarray(gba_pos)[mp_old], atol=1e-5)
 
     def test_async_gba_thread_runs_and_merges(self):
         from orbslam3lib_tpu.tracking.tracker import Tracker

@@ -1,6 +1,6 @@
 """Multi-process distributed BA: 2 jax.distributed processes x 4 virtual
 CPU devices = one global 8-device mesh whose Schur psum crosses the process
-boundary (Gloo) — the DCN shape of multi-host TPU BA (SURVEY.md §2.4 north
+boundary (Gloo) — the shape of multi-host BA (SURVEY.md §2.4 north
 star "global BA sharded across hosts over DCN"; BASELINE.md ">=70% BA
 scaling at 2+ hosts")."""
 import os

@@ -50,6 +50,36 @@ class TestPipelinedTracker:
         gt = np.stack([-R.T @ t for _, (R, t), _ in frames[-len(est):]])
         assert ate_rmse(est, gt) < 0.05
 
+    def test_gba_merge_mid_stream_keeps_tracking(self, sequence):
+        """A global BA that finishes while frames are in flight moves the
+        whole map; the tracker must follow it (here: a known rigid shift of
+        the map) without losing a frame."""
+        import jax.numpy as jnp
+        from orbslam3lib_tpu.utils import lie
+        frames, rig, _ = sequence
+        tr = Tracker(small_config(rig), sensor="stereo",
+                     enable_loop_closing=False, pipeline=6, chunk=2)
+        for img_pair, _, ts in frames[:20]:
+            tr.process_frame(img_pair, ts)
+        assert tr._pending, "no frames in flight: test moot"
+        m = tr.map
+        dR, dt = lie.se3_exp(jnp.asarray([0.02, -0.15, 0.05, 0.3, 0.0, -0.1],
+                                         jnp.float32))
+        gba_R = jnp.einsum("kij,jl->kil", m.kf_R, dR.T)
+        tr._gba_result = (gba_R, m.kf_t - jnp.einsum("kij,j->ki", gba_R, dt),
+                          m.mp_pos @ dR.T + dt, jnp.int32(int(m.n_kf)),
+                          m.mp_valid, m.mp_first_kf)
+        for img_pair, _, ts in frames[20:]:
+            tr.process_frame(img_pair, ts)
+        tr.finish()
+        assert tr.stats["n_gba_merged"] == 1
+        assert tr.state == OK and tr.stats["track_fail"] == 0
+        # after the merge the trajectory lives in the shifted world
+        est = tr.trajectory_centers()[-15:]
+        gt = np.stack([np.asarray(dR) @ (-R.T @ t) + np.asarray(dt)
+                       for _, (R, t), _ in frames[-15:]])
+        assert ate_rmse(est, gt) < 0.05
+
     def test_loss_in_burst_drains_to_sync(self, sequence):
         frames, rig, _ = sequence
         tr = Tracker(small_config(rig), sensor="stereo",

@@ -170,7 +170,7 @@ class TestRectifiedTrackerE2E:
 
 
 class TestRemapShifts:
-    """The shift-accumulate two-pass remap (the TPU fast path) against the
+    """The shift-accumulate two-pass remap (the tracker's path) against the
     exact gather-based bilinear oracle on real rectification maps."""
 
     def test_matches_exact_on_rectify_maps(self):

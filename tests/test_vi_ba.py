@@ -112,7 +112,7 @@ class TestLocalInertialBA:
 
 
 class TestPerKFBias:
-    """VERDICT item: quantify the shared-window-bias approximation vs the
+    """Quantify the shared-window-bias approximation vs the
     reference's per-KF bias vertices (Optimizer.cc:2405) on a ground-truthed
     window, in the regime where sharing should lose: a gyro bias that RAMPS
     across the window (random walk much faster than the walk prior)."""
@@ -149,8 +149,7 @@ class TestPerKFBias:
                                    jnp.zeros(3), CAM, bf=0.0, n_iters=8,
                                    per_kf_bias=True)
         e_sh, e_pk = err(res_sh), err(res_pk)
-        # record the measured approximation gap (consumed by the docs/bench
-        # notes; the VERDICT asked for the number)
+        # record the measured approximation gap (quoted in the README)
         print(f"[viba-bias-gap] shared={e_sh:.5f} per_kf={e_pk:.5f} "
               f"ratio={e_pk / max(e_sh, 1e-9):.3f}")
         # per-KF structure must not be worse (tolerate 5% solver noise)
